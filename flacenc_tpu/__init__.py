@@ -1,4 +1,4 @@
-"""flacenc_tpu — a TPU-native FLAC encoder framework.
+"""flacenc_tpu — a FLAC encoder framework with a batched accelerator path.
 
 Re-implements the capabilities of the `flacenc-rs` reference encoder
 (layer map in SURVEY.md) with a batched JAX/XLA compute path and a C++
@@ -13,17 +13,17 @@ from .errors import EncodeError, SourceError, Verified, VerifyError, into_verifi
 __version__ = constants.build_info.CRATE_VERSION
 
 
-def encode_with_fixed_block_size(config, src, block_size, use_tpu=True,
+def encode_with_fixed_block_size(config, src, block_size, use_device=True,
                                  **kwargs):
     """Encode a `Source` into a `component.Stream` (main library entry).
 
-    Dispatches to the batched TPU pipeline when available (the analogue of
-    the reference's par-mode auto dispatch, coding.rs:650-654); falls back
-    to the scalar numpy path otherwise or when `use_tpu=False`. Extra
+    Dispatches to the batched device pipeline (the analogue of the
+    reference's par-mode auto dispatch, coding.rs:650-654); runs the
+    scalar numpy path when `use_device=False`. Extra
     keyword arguments (`batch_size`, `packer`, `strict_lpc`) are forwarded
     to the batched pipeline.
     """
-    if use_tpu:
+    if use_device:
         from .models import batch_encoder
 
         return batch_encoder.encode_with_fixed_block_size(

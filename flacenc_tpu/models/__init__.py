@@ -1,1 +1,1 @@
-"""Encoder pipelines: the batched TPU encoder and the numpy oracle."""
+"""Encoder pipelines: the batched device encoder and the numpy oracle."""

@@ -405,7 +405,7 @@ def encode_with_fixed_block_size(
     """Single-block-at-a-time stream encoder (coding.rs:645-695).
 
     This is the oracle path; `flacenc_tpu.encode_with_fixed_block_size`
-    dispatches to the batched TPU pipeline by default.
+    dispatches to the batched device pipeline by default.
     """
     cfg = config.inner if isinstance(config, Verified) else config
     stream = Stream(src.sample_rate(), src.channels(), src.bits_per_sample())

@@ -1,6 +1,6 @@
 // FLAC frame bitstream packer — the host-side bit-serial stage.
 //
-// TPU-native equivalent of the reference's BitSink/BitRepr serialization
+// Batched equivalent of the reference's BitSink/BitRepr serialization
 // (/root/reference/src/bitsink.rs, src/component/bitrepr.rs): the device
 // computes predictors, Rice parameters, and residuals for a whole batch of
 // frames; this packer turns them into FLAC bytes in one call per batch.

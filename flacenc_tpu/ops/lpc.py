@@ -1,7 +1,7 @@
 """Batched quantized-LPC kernels: windowing, autocorrelation, Levinson,
 quantization, residual FIR.
 
-TPU reformulation of ``/root/reference/src/lpc.rs``:
+Batched reformulation of ``/root/reference/src/lpc.rs``:
 
 - windowing is an f32 elementwise product with a precomputed (bit-exact)
   window (lpc.rs:739-756);
@@ -103,8 +103,7 @@ def find_shift(coefs: jnp.ndarray, precision: int) -> jnp.ndarray:
 
     ceil(log2(x)) = smallest integer k with 2^k >= x. jnp.log2 gives k
     within one ulp; one exact exp2 comparison in each direction corrects it
-    (exp2 of an integer is exact in f64). Avoids frexp's bitcast, which the
-    TPU x64-rewrite pass does not support.
+    (exp2 of an integer is exact in f64) without frexp's bitcast.
     """
     max_abs = jnp.max(jnp.abs(coefs), axis=-1)
     safe = jnp.where(max_abs == 0.0, 1.0, max_abs)
@@ -194,7 +193,7 @@ def lagged_outer_prod_sum(win: jnp.ndarray, lpc_order: int, weights=None) -> jnp
     `win`: (..., T) f32 windowed signal; uses s = win[..., :-1] and
     t in [order-1, T-2] like the reference's ShiftedWeight<1> call
     (lpc.rs:878-883). Weight application is f32. The contraction is a
-    batched (order, T') x (T', order) matmul (MXU-shaped).
+    batched (order, T') x (T', order) f64 matrix product.
     """
     s32 = win[..., :-1]
     T1 = s32.shape[-1]
@@ -217,7 +216,7 @@ def cholesky_solve_spd(M: jnp.ndarray, y: jnp.ndarray) -> Tuple[jnp.ndarray, jnp
     failed=True where M is not SPD (non-positive pivot), mirroring
     nalgebra's failure that triggers the reference's regularization retry
     (lpc.rs:885-894). Unrolled over the (static, <=32) order — no linalg
-    HLOs, safe under the TPU x64-rewrite.
+    HLOs.
     """
     n = y.shape[-1]
     batch = y.shape[:-1]

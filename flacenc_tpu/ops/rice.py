@@ -1,6 +1,6 @@
 """Batched partitioned-Rice parameter search on device.
 
-TPU-native reformulation of ``/root/reference/src/rice.rs``: instead of two
+Batched reformulation of ``/root/reference/src/rice.rs``: instead of two
 u32x16 SIMD registers per partition, the cost table is a dense
 ``(..., nparts, 32)`` tensor built by shifted sums over the finest
 partitioning; coarser orders are produced by a log-depth pairwise merge, and
@@ -74,7 +74,7 @@ def _finest_tables(
     z_masked = jnp.where(t_idx < warm, jnp.uint32(0), z)
     zp = z_masked.reshape(z.shape[:-1] + (nparts, part_len))
     ps = jnp.arange(_N_P, dtype=jnp.uint32)
-    # shifted sums: loop over p is unrolled at trace time (31 VPU passes)
+    # shifted sums: loop over p is unrolled at trace time (32 passes)
     sums = jnp.stack(
         [
             (zp >> p).astype(jnp.int64).sum(axis=-1)
@@ -83,10 +83,7 @@ def _finest_tables(
         axis=-1,
     )  # (..., nparts, 32)
     sums = jnp.minimum(sums, MAX_P_TO_BITS)
-    # length terms: partition 0 loses `warmup` samples. NOTE: the Pallas
-    # branch in find_partitioned_rice_parameters applies the same
-    # 4 + len*(p+1) offset to its kernel-computed sums — keep the two in
-    # sync when changing the partition-0 rule.
+    # length terms: partition 0 loses `warmup` samples
     lens = jnp.full((nparts,), part_len, dtype=jnp.int64)
     lens = jnp.broadcast_to(lens, warm.shape[:-1] + (nparts,)).at[..., 0].add(
         -warmup.astype(jnp.int64)
@@ -109,11 +106,6 @@ def _minimize_tables(tables: jnp.ndarray, max_p: int) -> Tuple[jnp.ndarray, jnp.
     return (m & jnp.uint32(0x1F)).astype(jnp.int32), (m >> jnp.uint32(5)).astype(jnp.int64)
 
 
-import os as _os
-
-_USE_PALLAS_TABLES = _os.environ.get("FLACENC_PALLAS_RICE", "") == "1"
-
-
 def find_partitioned_rice_parameters(
     errors: jnp.ndarray,
     warmup: jnp.ndarray,
@@ -125,34 +117,12 @@ def find_partitioned_rice_parameters(
 
     `errors`: (..., T) int32 residuals; `warmup`: (...,) per-element warmup
     length (< MIN_PARTITION_SIZE, so the finest order is static).
-
-    Set FLACENC_PALLAS_RICE=1 to build the finest-level cost tables with
-    the fused Pallas kernel (ops/pallas_rice.py) instead of the 31-pass
-    XLA reduction. Benchmarked on a real v5e chip (r2, chained-dispatch
-    timing, batch 128): Pallas 5.58 ms/step vs XLA 2.13 ms/step — XLA's
-    fused multi-reduction beats the hand-written kernel here, so it stays
-    the default; the Pallas path remains as the interpret-vs-compiled
-    portability seam (SURVEY §2.1 "Fake SIMD" row) and is CI-tested.
     """
     assert min_partition_warmup_bound <= constants.rice.MIN_PARTITION_SIZE
     finest = finest_partition_order(block_size, constants.rice.MIN_PARTITION_SIZE)
     max_parts = 1 << finest
-    if _USE_PALLAS_TABLES and errors.ndim == 3:
-        from . import pallas_rice
-
-        sums = pallas_rice.rice_cost_tables_pallas(
-            errors, warmup.astype(jnp.int32), block_size, finest
-        ).astype(jnp.int64)
-        part_len = block_size // (1 << finest)
-        lens = jnp.full(warmup.shape + (1 << finest,), part_len, dtype=jnp.int64)
-        lens = lens.at[..., 0].add(-warmup.astype(jnp.int64))
-        ps64 = jnp.arange(_N_P, dtype=jnp.int64)
-        tables = jnp.minimum(
-            sums + 4 + lens[..., None] * (ps64 + 1), MAX_P_TO_BITS
-        )
-    else:
-        z = encode_signbit(errors)
-        tables = _finest_tables(z, warmup, finest, block_size)
+    z = encode_signbit(errors)
+    tables = _finest_tables(z, warmup, finest, block_size)
 
     n_orders = finest + 1
     batch_shape = errors.shape[:-1]

@@ -1,8 +1,8 @@
-"""Throughput and multi-chip layer (the reference's ``src/par.rs`` analogue).
+"""Throughput and multi-device layer (the reference's ``src/par.rs`` analogue).
 
 The reference parallelizes with worker threads + crossbeam channels; here
 the batch axis IS the parallelism: blocks are independent, so the batch is
-sharded over the ICI mesh (`mesh.py`) and the host<->device pipeline is
+sharded over a device mesh (`mesh.py`) and the host<->device pipeline is
 double-buffered (`pipeline.py`), with ordered frame reassembly on the host
 (the `ParSink` BTreeMap analogue is just list order).
 """

@@ -3,9 +3,9 @@
 Frame-level data parallelism (reference: worker threads over crossbeam
 channels, ``src/par.rs:109-193``) maps to sharding the block-batch axis of
 every `(B, C, T)` tensor across a 1-D `jax.sharding.Mesh`. Blocks are
-independent, so the hot path needs no collectives and scales linearly over
-ICI; cross-device stats (total bits, for progress reporting) use a single
-`psum` inside `shard_map`.
+independent, so the hot path needs no collectives; cross-device stats
+(total bits, for progress reporting) use a single `psum` inside
+`shard_map`.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from ..ops import jax_env  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 
@@ -50,12 +51,7 @@ def shard_encoder_fn(encode_batch, mesh: Mesh):
 
 
 def total_bits_psum(sf_bits: jnp.ndarray, mesh: Mesh) -> jnp.ndarray:
-    """Aggregate subframe bits across the mesh (ICI psum collective)."""
-    try:
-        from jax import shard_map  # jax >= 0.8
-    except ImportError:  # pragma: no cover - older jax
-        from jax.experimental.shard_map import shard_map
-
+    """Aggregate subframe bits across the mesh (one psum collective)."""
     def local_sum(x):
         return jax.lax.psum(x.sum(), BLOCK_AXIS)
 
@@ -70,11 +66,11 @@ def total_bits_psum(sf_bits: jnp.ndarray, mesh: Mesh) -> jnp.ndarray:
 def shard_corpus(paths: Sequence[str], n_hosts: int, host_id: int) -> list:
     """Deterministic multi-host corpus sharding (DCN level).
 
-    The reference's par-mode is intra-process; the TPU-native scale-out for
-    corpus encoding is process-level: each host takes a strided shard of
+    The reference's par-mode is intra-process; the scale-out for corpus
+    encoding across hosts is process-level: each host takes a strided shard of
     the file list (size-agnostic, deterministic, no coordination needed —
     files are independent) and runs `parallel.encode_corpus` on its local
-    chips. Combine with `jax.distributed.initialize()` in multi-host pods.
+    devices. Combine with `jax.distributed.initialize()` on several hosts.
     """
     assert 0 <= host_id < n_hosts
     return list(paths[host_id::n_hosts])

@@ -2,7 +2,7 @@
 
 The reference parallelizes one stream across worker threads fed by bounded
 refill queues with a dedicated MD5 thread (par.rs:109-193, 196-277,
-288-325). The TPU-native equivalent batches blocks from MANY files into
+288-325). The batched equivalent batches blocks from MANY files into
 shared `(B, C, T)` device batches so a corpus encode keeps the chip full
 regardless of file lengths, with the same boundedness properties:
 

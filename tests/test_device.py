@@ -14,7 +14,7 @@ from flacenc_tpu.component import decode_stream, parse_stream
 from flacenc_tpu.models import batch_encoder as be
 from flacenc_tpu.models import reference_encoder as re
 
-T = 1024  # small block keeps TPU/CPU jit fast in CI
+T = 1024  # small block keeps the jit fast in CI
 
 
 def stereo_signal(n, noise=0.01, bps=16):

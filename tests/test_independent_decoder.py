@@ -33,10 +33,10 @@ def _signal(channels, n, bps, seed=0):
     return x
 
 
-def _encode(x, channels, bps, rate, block, cfg=None, tpu=True):
+def _encode(x, channels, bps, rate, block, cfg=None, device=True):
     cfg = (cfg or config.Encoder()).into_verified()
     src = source.MemSource(x, channels, bps, rate)
-    if tpu:
+    if device:
         s = be.encode_with_fixed_block_size(cfg, src, block, batch_size=4)
     else:
         s = re.encode_with_fixed_block_size(cfg, src, block)
@@ -103,9 +103,9 @@ def test_all_subframe_types():
 def test_oracle_and_batch_paths_agree():
     n = 4096 + 701
     x = _signal(2, n, 16, seed=5)
-    d_tpu = _encode(x, 2, 16, 44100, 4096, tpu=True)
-    d_ref = _encode(x, 2, 16, 44100, 4096, tpu=False)
-    for data in (d_tpu, d_ref):
+    d_dev = _encode(x, 2, 16, 44100, 4096, device=True)
+    d_ref = _encode(x, 2, 16, 44100, 4096, device=False)
+    for data in (d_dev, d_ref):
         assert np.array_equal(independent.decode_stream(data).samples, x)
 
 

@@ -75,7 +75,7 @@ def test_bulk_int16_stream_matches_scalar_oracle_bytes():
         cfg, MemSource(x, 2, 16, 44100), 4096, batch_size=4
     ).to_bytes()
     b = flacenc_tpu.encode_with_fixed_block_size(
-        cfg, MemSource(x, 2, 16, 44100), 4096, use_tpu=False
+        cfg, MemSource(x, 2, 16, 44100), 4096, use_device=False
     ).to_bytes()
     assert a == b
 
@@ -145,6 +145,6 @@ def test_wav_bulk_int16_matches_per_block_bytes(tmp_path):
                                         batch_size=4).to_bytes()
     src.close()
     b = flacenc_tpu.encode_with_fixed_block_size(
-        cfg, MemSource(x, 2, 16, 44100), 4096, use_tpu=False
+        cfg, MemSource(x, 2, 16, 44100), 4096, use_device=False
     ).to_bytes()
     assert a == b

@@ -4,6 +4,7 @@ Goldens from ``/root/reference/src/rice.rs`` tests.
 """
 
 import numpy as np
+import pytest
 
 from flacenc_tpu import sigen
 from flacenc_tpu.ops import ref_np
@@ -95,3 +96,45 @@ def test_zigzag_roundtrip():
     z = ref_np.encode_signbit(v)
     assert list(z[:5]) == [0, 1, 2, 3, 4]
     assert np.array_equal(ref_np.decode_signbit(z), v)
+
+
+def _xla_tables(errors, warmup, T):
+    import jax
+    import jax.numpy as jnp
+
+    from flacenc_tpu.ops import rice as oR
+
+    finest = oR.finest_partition_order(T, 64)
+    fn = jax.jit(lambda e, w: oR._finest_tables(oR.encode_signbit(e), w, finest, T))
+    return np.asarray(fn(jnp.asarray(errors), jnp.asarray(warmup))), finest
+
+
+@pytest.mark.parametrize("kind", ["random", "saturating"])
+def test_xla_rice_tables_match_reference(kind):
+    """The device's finest-order cost tables (ops/rice._finest_tables) equal
+    ref_np.prc_bit_table partition by partition at the device step's
+    shape (B x 4 stereo candidates x 4096), including the warmup cut of
+    partition 0 and the MAX_P_TO_BITS clamp on huge residuals."""
+    rng = np.random.default_rng(0 if kind == "random" else 1)
+    B, K, T = 2, 4, 4096
+    if kind == "random":
+        errors = rng.integers(-3000, 3000, (B, K, T)).astype(np.int32)
+    else:
+        # |e| = 2^27 in the first partitions: the per-partition sum passes
+        # 2^31 and must clamp to MAX_P_TO_BITS, never wrap
+        errors = rng.integers(-50, 50, (B, K, T)).astype(np.int32)
+        errors[:, :, :96] = -(1 << 27)
+        errors[:, 1, 200:260] = (1 << 30) - 1
+    warmup = rng.integers(0, 12, (B, K)).astype(np.int32)
+    got, finest = _xla_tables(errors, warmup, T)
+    nparts = 1 << finest
+    plen = T // nparts
+    for b in range(B):
+        for k in range(K):
+            z = ref_np.encode_signbit(errors[b, k])
+            for p in range(nparts):
+                start = max(p * plen, int(warmup[b, k]))
+                want = ref_np.prc_bit_table(z[start:(p + 1) * plen], 4)
+                assert np.array_equal(got[b, k, p], want.astype(np.int64)), (b, k, p)
+    if kind == "saturating":
+        assert (got[:, :, 0, 0] == ref_np.MAX_P_TO_BITS).all()

@@ -117,18 +117,12 @@ def main() -> int:
     args = ap.parse_args()
 
     os.environ["FLACENC_TIMELINE"] = "1"
-    os.environ.setdefault("FLACENC_FETCH_GROUP", "4")
 
-    from bench import _probe_device
     from hwconfigs import stereo_audio
 
     def make_audio(seconds, rate):
         return stereo_audio(seconds, rate, args.bps)
 
-    probe_s = float(os.environ.get("FLACENC_CLI_PROBE_TIMEOUT_S", "120"))
-    if not _probe_device(probe_s):
-        print(json.dumps({"error": "device probe timed out"}), flush=True)
-        return 7
     from flacenc_tpu import config
     from flacenc_tpu.models import batch_encoder as be
     from flacenc_tpu.source import MemSource
